@@ -59,11 +59,11 @@ class ScaffoldConfig:
 
     # --- graph tensorization ---
     max_degree: int = 64           # CSR row width K; keep top-K out-edges by (ES desc, dst asc)
-    # "auto": score edges with the Pallas kernel when a TPU is the default
-    # backend AND the edge count is large enough to amortize the kernel's
-    # first-ever compile (>= 32M rows; pipeline.py) — below that the host numpy
-    # scores stand (same fp32 op order, bit-identical; kernels/scoring.py).
-    # "on"/"off" force it. One backend scores the whole run, so results stay
+    # "auto": rescore edges on the device when an accelerator is the default
+    # backend AND the edge count is at least 32M rows (pipeline.py) — below
+    # that the host numpy scores stand (same fp32 op order; bit-identical on
+    # the CPU, within a few ulp on the GPU — kernels/scoring.py). "on"/"off"
+    # force it. One backend scores the whole run, so results stay
     # deterministic (kernels/scoring.py precision note).
     device_scoring: str = "auto"
 
@@ -77,10 +77,9 @@ class ScaffoldConfig:
     # Monte-Carlo repetitions per anchor end. Raised 100 -> 1000 in round 4:
     # with density-INVARIANT read-diverse support (support_mode below) extra
     # walks can only discover more distinct paths, never inflate a chimera's
-    # support, and the engine saturates at ~1.5M walks in flight (BASELINE.md
-    # roofline) — hg002-sub's whole production batch at 1000/end is still under
-    # 1M walks, ~0.5 s of device time, and bridges sampling-limited gaps (gap
-    # 354) in the BASE round instead of needing a rescue round.
+    # support — hg002-sub's whole production batch at 1000/end is still under
+    # 1M walks, and bridges sampling-limited gaps (gap 354) in the BASE round
+    # instead of needing a rescue round.
     mc_walks_per_end: int = 1000
     max_steps: int = 32            # fixed walk length bound (nodes beyond the start anchor)
     mc_seed: int = 0               # base PRNG seed; per-walk streams via fold_in(walk_uid)
@@ -149,14 +148,13 @@ class ScaffoldConfig:
     walk_batch_multiple: int = 8   # pad walk batch to a multiple of this * n_devices
     # upper bound on walks per device DISPATCH (single-device path): plans
     # larger than this run in deterministic chunks — records are uid-keyed, so
-    # chunked ≡ unchunked bitwise (the core RNG invariant). Sized so one
-    # chunk's records + scan temps stay well under one chip's HBM: the FULL
-    # hg002 preset (3 Gb, 9.4M planned walks) OOMed at 28.7 GB in one dispatch
-    # (v5e has 16 GB); 2M-walk chunks peak ~4 GB and still run at the
-    # throughput plateau (BASELINE.md batch-width table: walks/s is flat from
-    # ~1.6M up). 0 disables chunking.
+    # chunked ≡ unchunked bitwise (the core RNG invariant). It bounds the
+    # records + scan temps of one dispatch: the FULL hg002 preset (3 Gb) plans
+    # millions of walks, whose single-dispatch records would take tens of GB.
+    # The value predates the GPU port; deriving it from the device's
+    # memory_stats() is open (ROADMAP.md §3). 0 disables chunking.
     max_walk_batch: int = 1 << 21
-    # "replicated": graph on every chip (fastest; graph must fit one HBM);
+    # "replicated": graph on every device (fastest; graph must fit one card);
     # "rowshard": CSR rows sharded over the mesh (>HBM graphs; each walk step
     # fetches rows via collectives — dist/rowshard.py; requires --mesh);
     # "auto": replicated unless the device tables exceed ~75% of one device's

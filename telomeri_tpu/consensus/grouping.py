@@ -1,4 +1,4 @@
-"""Path grouping + consensus selection as sort/segment reductions (TPU).
+"""Path grouping + consensus selection as sort/segment reductions (device).
 
 Reference parity: the C++ reference's PathGroup histogram/consensus logic (SURVEY.md §3
 rows 11-12; mount empty, SURVEY.md §0 — rules below are OUR normative spec, following

@@ -10,8 +10,9 @@ item 6, §7 "cross-host determinism": walk uids, not device ids, seed the RNG st
 and break ties).
 
 Mechanism: jax.sharding.NamedSharding annotations + jit — XLA GSPMD inserts the actual
-collectives (all-gather on the replication constraint) over ICI/DCN; no hand-written
-NCCL-style transport (SURVEY.md §6 "Comm backend"). Multi-host entry:
+collectives (all-gather on the replication constraint), which XLA hands to NCCL over
+NVLink between the cards of a host; no hand-written transport (SURVEY.md §6 "Comm
+backend"). Multi-host entry:
 `jax.distributed.initialize()` before building the mesh (init_distributed()).
 """
 
@@ -41,15 +42,17 @@ def init_distributed(**kwargs) -> None:
     """Multi-host process init.
 
     With kwargs (coordinator_address/num_processes/process_id) initializes exactly as
-    asked. Without kwargs, attempts auto-detection (TPU pod metadata, SLURM, etc.) and
-    quietly stays single-process when no cluster environment exists. NOTE: do not
-    probe jax.process_count() first — it initializes the local backend and always
-    reports 1 before jax.distributed.initialize() has run."""
+    asked. Without kwargs, JAX auto-detects a cluster environment (SLURM, Open MPI,
+    Kubernetes, JAX_COORDINATOR_ADDRESS); on a single host with none of them it
+    raises ValueError at once, without waiting for a coordinator, and the run stays
+    single-process. NOTE: do not probe jax.process_count() first — it initializes
+    the local backend and always reports 1 before jax.distributed.initialize()
+    has run."""
     from telomeri_tpu.utils.logging import log
 
     try:
         jax.distributed.initialize(**kwargs)
-    except Exception as e:  # no cluster env detected / already initialized
+    except ValueError as e:  # no cluster environment detected
         if kwargs:
             raise
         log.info("jax.distributed not initialized (%s); single-process mode", e)

@@ -1,13 +1,15 @@
 """Row-sharded graph walks: the >HBM fallback (SURVEY.md §6 "long-context analog").
 
-The replicated-graph design ([BASELINE]; dist/mesh.py) caps graph size at ONE chip's
-HBM (~10.5 GiB at the HG002 budget, BASELINE.md). Graphs beyond that — higher
-coverage, larger genomes, wider K — shard their CSR ROWS over the same 1-D mesh the
-walks use: device i holds rows [i*N/D, (i+1)*N/D) of the packed wide table, so the
-aggregate capacity scales with the mesh (D x HBM) instead of replicating.
+The replicated-graph design ([BASELINE]; dist/mesh.py) caps graph size at ONE card's
+device memory. Graphs beyond that — higher coverage, larger genomes, wider K — shard
+their CSR ROWS over the same 1-D mesh the walks use: device i holds rows
+[i*N/D, (i+1)*N/D) of the packed wide table, so the aggregate capacity scales with
+the mesh (D x device memory) instead of replicating.
 
 Each walk step then needs rows owned by OTHER devices. The fetch is three XLA
-collectives riding ICI (no hand-written transport — SURVEY.md §6 "Comm backend"):
+collectives, which XLA hands to NCCL over NVLink (every card of a host reaches every
+other at the same rate, so the 1-D mesh needs no topology shape; no hand-written
+transport — SURVEY.md §6 "Comm backend"):
 
     cur_all = all_gather(cur_local)                      # (W,) int32 — tiny
     part    = where(owned, wide_local[cur_all - off], 0) # masked local gather
@@ -16,15 +18,13 @@ collectives riding ICI (no hand-written transport — SURVEY.md §6 "Comm backen
 Exactly one shard contributes a nonzero row per walk (ids are unique), so the psum
 is EXACT for both the int32 wide blocks and the f32 OS rows (x + 0 == x): results
 are byte-identical to the replicated engine (tests/test_rowshard.py). Per step the
-collective moves ~W*6H*4 B through ICI — at W=49k, H=64 that is ~72 MB/step
-(~1-2 ms over v5e ICI), comparable to the replicated engine's own gather-bound
-step time (BASELINE.md walk roofline), so the memory headroom costs roughly 2x
-step latency, only on graphs that could not run at all otherwise.
+collective moves ~W*6H*4 B between the cards, so the memory headroom costs step
+latency, paid only on graphs that could not run replicated at all.
 
 The walk scan itself is unchanged: the engine cores (walk/engine.py _mc_fast_core /
 _kind_core) take the row fetch as a parameter; this module supplies the collective
 one inside shard_map. Reference parity: the C++ reference is single-process with
-the whole graph in RAM (SURVEY.md §2.1); this subsystem is introduced by the TPU
+the whole graph in RAM (SURVEY.md §2.1); this subsystem is introduced by this
 framework, decomposition per SURVEY.md §3 "Distributed components".
 """
 

@@ -1,7 +1,7 @@
 """Fixed-shape overlap-graph tensorization: EdgeSoA -> padded CSR in HBM.
 
 Reference parity: the C++ reference's OverlapGraph build (SURVEY.md §3 row 6; mount empty,
-SURVEY.md §0). The reference uses pointer-based adjacency; the TPU-native encoding is a
+SURVEY.md §0). The reference uses pointer-based adjacency; the device encoding is a
 dense (N, K) padded CSR so each walk step is one dense gather (SURVEY.md §2.2 `graph/`).
 
 Layout:

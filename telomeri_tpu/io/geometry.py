@@ -216,8 +216,9 @@ def build_edges(
 ) -> tuple[EdgeSoA, FilterStats]:
     """Filter PAF rows and emit the two directed edges per kept row.
 
-    Scores here are the float64 numpy reference; the Pallas kernel
-    (kernels/scoring.py) recomputes OS/ES on device and is tested for parity.
+    Scores here are the float32 numpy reference (kernels/scoring.py
+    score_arrays_np); rescore_edges_device recomputes OS/ES on device and is
+    tested for parity.
     Edge order is deterministic: kept rows in file order, forward edge then mirror edge
     interleaved per row.
     """
@@ -295,7 +296,7 @@ def build_edges(
     ol1 = l_e - l_s
     ol2 = r_e - r_s
     # Scores via the shared float32 formula (kernels/scoring.py) — bit-identical to the
-    # Pallas kernel's output (parity-tested in tests/test_scoring.py).
+    # CPU jnp implementation (parity-tested in tests/test_scoring.py).
     from telomeri_tpu.kernels.scoring import score_arrays_np
 
     nm = paf.nmatch[idx]
@@ -340,25 +341,16 @@ def build_edges(
     return edges, st
 
 
-def rescore_edges_device(edges: EdgeSoA, backend: str = "auto") -> EdgeSoA:
-    """Recompute edges.os_/es with the device scoring kernel (SURVEY.md §1: the
-    'extension-score inner loop -> Pallas' production path). The device result
-    replaces the host scores so ALL downstream decisions use one backend's
-    arithmetic (kernels/scoring.py precision note)."""
+def rescore_edges_device(edges: EdgeSoA) -> EdgeSoA:
+    """Recompute edges.os_/es on the default JAX device (kernels/scoring.py
+    score_os_es2_jnp). The device result replaces the host scores so ALL
+    downstream decisions use one backend's arithmetic (kernels/scoring.py
+    precision note)."""
     if len(edges) == 0:
         return edges
-    import jax as _jax
-    import numpy as _np
+    from telomeri_tpu.kernels.scoring import score_os_es2_jnp
 
-    from telomeri_tpu.kernels.scoring import score_os_es2_pallas, score_overlaps
-
-    if backend == "auto":
-        backend = "pallas" if _jax.default_backend() == "tpu" else "jnp"
-    if backend == "pallas":
-        # 2-output kernel: bitwise identical to the 4-output one, writes less
-        os_, es2 = score_os_es2_pallas(*edges.geom_args())
-    else:
-        _, os_, _, es2 = score_overlaps(*edges.geom_args(), backend=backend)
-    edges.os_ = _np.asarray(os_)
-    edges.es = _np.asarray(es2)
+    os_, es2 = score_os_es2_jnp(*edges.geom_args())
+    edges.os_ = np.asarray(os_)
+    edges.es = np.asarray(es2)
     return edges

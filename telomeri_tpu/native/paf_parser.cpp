@@ -1,7 +1,7 @@
 // Fast PAF parser (C API consumed via ctypes from telomeri_tpu/native/paf_native.py).
 //
 // Reference parity: the C++ reference tool parses PAF natively (SURVEY.md §3 row 3;
-// the reference mount was empty — SURVEY.md §0); this is the TPU-framework's native
+// the reference mount was empty — SURVEY.md §0); this is this framework's native
 // ingest path. Semantics are defined by the pure-Python parser
 // telomeri_tpu/io/paf.py::_parse_columns_py and enforced by tests/test_native.py:
 //   - tab-separated, >= 11 columns, empty lines skipped, trailing \r stripped

@@ -153,7 +153,7 @@ PRESETS: dict[str, SimConfig] = {
     # feasible since the round-4 simulator scaling work (searchsorted contig/
     # copy probing + sampled cross-copy pair enumeration — the full-scan paths
     # were O(units x copies) and O(copy_pairs x touch^2)). Needs ~90 GB RAM
-    # and ~40 GB disk; the replicated graph still fits one v5e chip
+    # and ~40 GB disk; the replicated graph fits one card's device memory
     # (docs/ARCHITECTURE.md memory budget).
     "hg002": SimConfig(genome_len=3_000_000_000, repeat_len=15_000,
                        n_repeat_copies=4_000, read_len_mean=30_000,

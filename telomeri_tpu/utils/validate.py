@@ -24,6 +24,13 @@ from telomeri_tpu.io.fasta import reverse_complement
 from telomeri_tpu.utils.align import ChainAlignment, KmerIndex, chain_align, pack_kmers
 
 
+# A junction window whose identity falls below this is counted as a misjoin. A
+# correct junction scores about 1 - read error rate (fills are raw read bases); a
+# join to the wrong locus leaves part of the window aligned to nothing, which
+# craters its identity (tests/test_validate.py test_junction_identities_flag_misjoin).
+MISJOIN_WINDOW_IDENTITY = 0.6
+
+
 @dataclass
 class Placement:
     scaffold: str
@@ -372,4 +379,7 @@ def validate_assembly(scaffolds, genomes, k: int = 24, stride: int = 32,
         report["max_identity_stderr"] = round(max_stderr, 6)
     if worst_junction is not None:
         report["worst_junction_identity"] = round(worst_junction, 6)
+        report["n_misjoins"] = sum(
+            j["identity"] < MISJOIN_WINDOW_IDENTITY
+            for p in placements for j in p.junctions)
     return report

@@ -5,8 +5,8 @@ Two roles (SURVEY.md §5 item 2 and §7 "Performance baseline"):
      jax.random stream the engine uses, every decision (greedy and Monte-Carlo) must
      match walk/engine.py exactly.
   2. CPU baseline: with the fast default RNG, this is the "single-core CPU reference"
-     whose walks/s the TPU engine must beat by >= 100x (BASELINE.md — the C++ reference
-     was unreadable, so this oracle stands in; it is a faithful scalar transcription of
+     that bench.py divides the device engine's walks/s by (the C++ reference was
+     unreadable, so this oracle stands in; it is a faithful scalar transcription of
      the same per-step work the C++ tool performs).
 """
 

@@ -159,6 +159,7 @@ def test_auto_placement_resolution(toy_graph, monkeypatch):
 
     # a "graph" that claims not to fit one device must flip to rowshard
     monkeypatch.setattr(engine, "device_table_bytes", lambda g: 10**18)
+    monkeypatch.setattr(pl, "_device_memory_limit", lambda dev: 80 * 2**30)
     m = Metrics()
     out = pl._resolve_placement(cfg, toy_graph, mesh, m)
     assert out.graph_placement == "rowshard"
@@ -174,3 +175,37 @@ def test_auto_placement_resolution(toy_graph, monkeypatch):
         explicit = dataclasses.replace(CFG, graph_placement=v)
         assert pl._resolve_placement(explicit, toy_graph, mesh,
                                      Metrics()).graph_placement == v
+
+
+def test_auto_placement_unknown_limit_stays_replicated_on_cpu(toy_graph,
+                                                              monkeypatch):
+    """The CPU backend reports no memory limit: 'auto' keeps the graph
+    replicated however large it claims to be, and says so; an accelerator
+    without a reported limit is an error rather than a guessed size."""
+    import dataclasses
+
+    from telomeri_tpu import pipeline as pl
+    from telomeri_tpu.utils.logging import Metrics
+    from telomeri_tpu.walk import engine
+
+    cfg = dataclasses.replace(CFG, graph_placement="auto")
+    mesh = make_walk_mesh(8)
+    assert pl._device_memory_limit(mesh.devices.flat[0]) is None
+    monkeypatch.setattr(engine, "device_table_bytes", lambda g: 10**18)
+    m = Metrics()
+    out = pl._resolve_placement(cfg, toy_graph, mesh, m)
+    assert out.graph_placement == "replicated"
+    assert m.values["graph_placement"] == "replicated"
+
+    class _Gpu:
+        platform, device_kind = "gpu", "NVIDIA H100 80GB HBM3"
+
+        def memory_stats(self):
+            return None
+
+    class _GpuMesh:
+        size = 4
+        devices = np.array([_Gpu()] * 4)
+
+    with pytest.raises(RuntimeError, match="reports no memory limit"):
+        pl._resolve_placement(cfg, toy_graph, _GpuMesh(), Metrics())

@@ -5,8 +5,8 @@ analog, quarter scale): many repeat junctions, PacBio-like error rate,
 single-scaffold reconstruction. Runs in the default suite.
 
 test_ecoli_preset_end_to_end — the full E. coli-scale preset (4.6 Mb). Minutes-long,
-so it only runs when TELOMERI_SCALE_TEST=1; the driver-facing scale validation
-normally happens on the TPU via the CLI (BASELINE.md "Scale validation").
+so it only runs when TELOMERI_SCALE_TEST=1; on the GPU the same preset runs through
+the CLI in chip_smoke.py (phase 2).
 """
 
 import os

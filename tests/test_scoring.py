@@ -1,12 +1,13 @@
-"""Scoring parity tests: Pallas kernel ≡ jnp ≡ numpy oracle (SURVEY.md §5 item 2)."""
+"""Scoring parity tests: jnp ≡ numpy oracle (SURVEY.md §5 item 2)."""
 
 import numpy as np
 import pytest
 
 from telomeri_tpu.kernels.scoring import (
     score_arrays_np,
+    score_os_es2_jnp,
+    score_overlaps,
     score_overlaps_jnp,
-    score_overlaps_pallas,
 )
 
 
@@ -38,32 +39,57 @@ def test_golden_values():
     assert es1[0] == es2[0] == pytest.approx(580.0)
 
 
-def test_jnp_matches_np_bitwise(rng):
-    g = random_geom(rng, 4097)
-    ref = score_arrays_np(*args(g))
-    got = score_overlaps_jnp(*args(g))
-    for r, o in zip(ref, got):
-        np.testing.assert_array_equal(r, np.asarray(o))
-
-
-@pytest.mark.parametrize("n", [1, 127, 128, 1000, 32768, 70001])
-def test_pallas_interpret_matches_np_bitwise(rng, n):
+@pytest.mark.parametrize("n", [1, 127, 128, 1000, 4097, 32768, 70001])
+def test_jnp_matches_np_bitwise(rng, n):
     g = random_geom(rng, n)
     ref = score_arrays_np(*args(g))
-    got = score_overlaps_pallas(*args(g), interpret=True)
+    got = score_overlaps_jnp(*args(g))
     for r, o in zip(ref, got):
         assert o.shape == (n,)
         np.testing.assert_array_equal(r, np.asarray(o))
 
 
-def test_pallas_two_output_variant_bitwise(rng):
-    from telomeri_tpu.kernels.scoring import score_os_es2_pallas
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "triton"])
+def test_score_overlaps_rejects_unknown_backend(rng, backend):
+    g = random_geom(rng, 8)
+    with pytest.raises(ValueError, match="auto/jnp"):
+        score_overlaps(*args(g), backend=backend)
+    ref = score_arrays_np(*args(g))
+    for ok in ("auto", "jnp"):
+        for r, o in zip(ref, score_overlaps(*args(g), backend=ok)):
+            np.testing.assert_array_equal(r, np.asarray(o))
 
+
+def test_os_es2_half_matches_full_formula(rng):
+    """score_os_es2_jnp (the device rescore path) returns exactly the os and
+    es2 columns of the 4-output formula."""
     g = random_geom(rng, 9000)
     _, os_ref, _, es2_ref = score_arrays_np(*args(g))
-    os_, es2 = score_os_es2_pallas(*args(g), interpret=True)
+    os_, es2 = score_os_es2_jnp(*args(g))
     np.testing.assert_array_equal(os_ref, np.asarray(os_))
     np.testing.assert_array_equal(es2_ref, np.asarray(es2))
+
+
+def test_rescore_edges_device_matches_host_scores(toy_dataset_dir):
+    """The device rescore path (io/geometry.py rescore_edges_device) writes the
+    same OS/ES bits that build_edges computed on the host with numpy."""
+    import copy
+    import os
+
+    from telomeri_tpu.config import ScaffoldConfig
+    from telomeri_tpu.io.geometry import build_edges, rescore_edges_device
+    from telomeri_tpu.pipeline import load_inputs
+
+    contigs, reads, paf = load_inputs(*[
+        os.path.join(toy_dataset_dir, f) for f in
+        ("contigs.fa", "reads.fa", "read2contig.paf", "read2read.paf")])
+    edges, _ = build_edges(paf, ScaffoldConfig(), len(contigs) + len(reads))
+    assert len(edges) > 0
+    host_os, host_es = edges.os_.copy(), edges.es.copy()
+    dev = rescore_edges_device(copy.deepcopy(edges))
+    assert dev.os_.dtype == np.float32 and dev.es.dtype == np.float32
+    np.testing.assert_array_equal(host_os, dev.os_)
+    np.testing.assert_array_equal(host_es, dev.es)
 
 
 def test_zero_blocklen_guard():

@@ -123,6 +123,7 @@ def test_junction_identities_flag_misjoin():
     assert j[10_000] > 0.95                   # healthy junction
     assert j[30_000] < 0.6                    # the misjoin
     assert rep["worst_junction_identity"] < 0.6
+    assert rep["n_misjoins"] == 1
 
 
 def test_junctions_from_segments_and_agp(tmp_path):

@@ -33,7 +33,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# host-side analysis: never touch the (possibly busy) TPU
+# host-side analysis: stays on the CPU and leaves the card to the pipeline
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
